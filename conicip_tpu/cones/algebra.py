@@ -1,6 +1,6 @@
 """Euclidean-Jordan-algebra kernels over a cone product, batched per group.
 
-TPU-first rewrite of the reference's per-cone dispatch loops
+Vectorized rewrite of the reference's per-cone dispatch loops
 (``∘``/``÷``/``maxstep``, ConicIP.jl:305-360 and 571-665): every cone *group*
 (all R coordinates; all Q cones of one dim; all S cones of one order) is
 processed by one vectorized kernel, so a product of hundreds of small cones
@@ -28,11 +28,11 @@ from .segment import put_group, put_r, take_group, take_r
 from .spec import ConeSpec
 from .symm import mat, vecm
 
-# HIGHEST everywhere: on the v5e the default f32 matmul precision is a
-# single bf16 pass (~2.6e-3 relative error, measured) — fatal for the
-# congruences whose eigenvalues drive max-step and the Lyapunov division
-# when these kernels run on f32 data (see cones/scaling.py); for f64
-# operands HIGHEST is exact, so it is always the right choice here.
+# HIGHEST everywhere: the GPU's default f32 matmul precision is TF32
+# (10 mantissa bits) — fatal for the congruences whose eigenvalues drive
+# max-step and the Lyapunov division when these kernels run on f32 data
+# (see cones/scaling.py); for f64 operands HIGHEST is exact, so it is
+# always the right choice here.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -90,21 +90,10 @@ def _eigh_d(A: jnp.ndarray, eig_dtype):
     """Batched symmetric eigendecomposition honoring the ``eig_dtype``
     contract used throughout the cone layer:
 
-    - ``None``       → stock ``eigh`` at the input dtype,
-    - a dtype        → computed there, factors cast back (the f32 fast
-                       phase; ~free on v5e vs ~0.45 ms/call emulated-f64),
-    - ``"refined"``  → GEMM-dominant f32-seed + exact-f64 refinement
-                       (ops/smalleig.eigh_refined). This is the
-                       full-precision tier's TPU form: XLA's emulated-f64
-                       eigh serializes under vmap (the batched-SDP rescue
-                       regime), while the refined sweeps are batched
-                       matmuls — and it resolves eigenvalues BETTER than
-                       the stock f64 eigh's measured ~5e-7 floor.
+    - ``None``  → stock ``eigh`` at the input dtype,
+    - a dtype   → computed there, factors cast back (the opt-in f32 fast
+                  phase).
     """
-    if eig_dtype == "refined":
-        from ..ops.smalleig import eigh_refined
-
-        return eigh_refined(A)
     if eig_dtype is not None and eig_dtype != A.dtype:
         w, U = jnp.linalg.eigh(A.astype(eig_dtype))
         return w.astype(A.dtype), U.astype(A.dtype)
@@ -114,7 +103,7 @@ def _eigh_d(A: jnp.ndarray, eig_dtype):
 def _arith_dtype(wd, eig_dtype):
     """Dtype for the surrounding cone arithmetic: the working dtype unless
     an explicit lower eig_dtype asks the whole block to run there."""
-    return wd if eig_dtype in (None, "refined") else eig_dtype
+    return wd if eig_dtype is None else eig_dtype
 
 
 def sdp_eighs(spec: ConeSpec, x: jnp.ndarray, eig_dtype=None):
@@ -124,12 +113,9 @@ def sdp_eighs(spec: ConeSpec, x: jnp.ndarray, eig_dtype=None):
     One IPM iteration consumes eigh(mat(λ)) in up to ~7 places (every
     Lyapunov division against λ in solve4, and — via the congruence
     invariance ``maxstep(z.v, d) = maxstep(λ, F d)`` — every max-step
-    call).  XLA's batched eigh of tiny matrices costs ~0.9 ms per call on
-    v5e regardless of FLOPs (lane-padded serial sweeps), so recomputing it
-    per call dominated the batched small-SDP iteration (the measured
-    0.01x disaster, VERDICT r4).  Computing it once here and threading the
-    factors through :func:`cone_div`/:func:`maxstep_multi` removes ~10
-    decomposition calls per iteration.
+    call).  Computing it once here and threading the factors through
+    :func:`cone_div`/:func:`maxstep_multi` removes ~10 decomposition calls
+    per iteration.
 
     Returns a tuple over ``spec.sdp_groups`` of ``(w, U)`` at the
     ``eig_dtype`` discipline of :func:`_eigh_d` (factors in the group's
@@ -149,15 +135,13 @@ def lyap_solve(Y: jnp.ndarray, X: jnp.ndarray, eig_dtype=None,
                y_eig=None) -> jnp.ndarray:
     """Solve ``Y O + O Y = X`` for symmetric Y, X, batched over leading dims.
 
-    TPU-native replacement for the reference's LAPACK ``lyap`` call
+    Replacement for the reference's LAPACK ``lyap`` call
     (dsdc!, ConicIP.jl:347-353): eigendecompose Y = U diag(w) Uᵀ, then
     O = U ( (Uᵀ X U)_{ij} / (w_i + w_j) ) Uᵀ — one batched eigh plus matmuls.
 
-    ``eig_dtype`` runs the eigendecomposition (the latency hot spot: an
-    f64 eigh of a 10×10 costs ~0.45 ms on v5e while the f32 one is ~free;
-    f64 eigh computes at only ~5e-7 anyway — the measured NT floor) in a
-    lower precision, with the combination arithmetic kept in the working
-    dtype. Used by the IPM's fast-phase iterations (solver/ipm.py).
+    ``eig_dtype`` runs the eigendecomposition in a lower precision, with
+    the combination arithmetic kept in the working dtype. Used by the
+    IPM's opt-in f32 fast-phase iterations (solver/ipm.py).
     ``y_eig`` supplies a precomputed ``(w, U)`` of Y (:func:`sdp_eighs`).
     """
     w, U = _eigh_d(Y, eig_dtype) if y_eig is None else y_eig
@@ -265,8 +249,7 @@ def maxstep_multi(spec: ConeSpec, x: jnp.ndarray, ds, eig_dtype=None,
 
     The IPM needs two max-steps per call site (against the v- and s-side
     directions); computed independently each costs one batched tiny eigh
-    of ``M = X^{-1/2} D X^{-1/2}`` — and on v5e a batched eigh of tiny
-    matrices has a ~0.9 ms floor regardless of batch FLOPs.  Here the
+    of ``M = X^{-1/2} D X^{-1/2}``.  Here the
     S-cone ``M`` matrices of ALL directions are stacked into ONE batched
     eigh per group, and ``x_eigs`` (:func:`sdp_eighs`) supplies the
     decomposition of ``mat(x)`` so it is never recomputed.  R/SOC parts
@@ -326,9 +309,8 @@ def maxstep_multi(spec: ConeSpec, x: jnp.ndarray, ds, eig_dtype=None,
         # Step lengths only need λmax to ~1e-3 relative (the 1% DTB
         # fraction-to-boundary margin dominates), and f32 eigh computes
         # the LARGEST eigenvalue to ~1e-6 relative — so the step eigh
-        # always runs in f32, even when the surrounding iteration uses
-        # refined (emulated-f64) decompositions, whose GEMM sweeps would
-        # cost ~4x here for digits the step cannot use.
+        # always runs in f32: the digits an f64 eigh adds are ones the
+        # step cannot use.
         Mc = jnp.concatenate(Ms, axis=0)
         if Mc.dtype == jnp.float64:
             lam_all = jnp.linalg.eigvalsh(Mc.astype(jnp.float32))
@@ -356,9 +338,9 @@ def centrality_correction(spec: ConeSpec, w: jnp.ndarray, lo, hi,
     the upper bound).
 
     The reference has no corrector (ConicIP.jl runs plain Mehrotra); this
-    EXTENDS it. On TPU the corrector is nearly free — it reuses the
-    iteration's factorization — so trading one extra triangular solve for
-    a saved O(n³) refactorization is the hardware-right bargain.
+    EXTENDS it. The corrector reuses the iteration's factorization, so it
+    trades one extra back-solve for a possibly saved O(n³)
+    refactorization.
 
     Componentwise on R; closed-form two-eigenvalue Jordan frame on Q;
     batched ``eigh`` on S (``eig_dtype`` as in :func:`maxstep`).

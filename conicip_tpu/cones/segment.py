@@ -1,8 +1,8 @@
 """Static-slice segment access for cone groups.
 
-TPU gathers/scatters with explicit index arrays lower to real gather/scatter
-HLOs — measured at ~0.1 ms per op on a 2000-vector on v5e, which dominated
-the cone-algebra layer (each Jordan op does several). Whenever a segment is
+Gathers/scatters with explicit index arrays lower to real gather/scatter
+HLOs, and the cone-algebra layer does several per Jordan op. Whenever a
+segment is
 a consecutive index run (always true for single-type cone products, and for
 any ``cone_dims`` ordering that keeps same-typed cones adjacent), these
 helpers use static slices and ``.at[a:b].set`` (→ dynamic-update-slice),

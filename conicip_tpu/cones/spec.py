@@ -2,8 +2,8 @@
 
 The reference (``/root/reference/src/ConicIP.jl:519-565``) represents a cone
 product ``K = K_1 x ... x K_j`` as a list of ``(type, dim)`` tuples and
-dispatches on it with per-cone Julia loops. On TPU we need *static shapes* and
-*batched* kernels instead, so :class:`ConeSpec` precomputes, at trace time:
+dispatches on it with per-cone Julia loops. Under XLA we need *static shapes*
+and *batched* kernels instead, so :class:`ConeSpec` precomputes, at trace time:
 
 - the index set of all nonnegative-orthant (``R``) coordinates,
 - second-order cones (``Q``) *grouped by dimension* so that every group is a
@@ -69,8 +69,8 @@ def tri_indices(d: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 def _contig_start(idx: np.ndarray):
     """Start offset if ``idx.ravel()`` is one consecutive run, else None.
 
-    TPU gathers/scatters with explicit index arrays are slow (they lower to
-    real gather/scatter HLOs); a consecutive run lowers to a static slice /
+    Gathers/scatters with explicit index arrays lower to real
+    gather/scatter HLOs; a consecutive run lowers to a static slice /
     dynamic-update-slice, which is nearly free. Cone groups are consecutive
     whenever same-typed cones are adjacent in ``cone_dims`` — in particular
     always for single-type cone products (the common case).
@@ -204,8 +204,8 @@ class ConeSpec:
     def only_r(self) -> bool:
         """True when the whole product is one contiguous R block — the
         LP/QP case. Cone ops then skip all segment machinery and become
-        pure elementwise code (a zeros+dynamic-update-slice round trip on
-        an (m, n) operand costs ~30-60 us on TPU; elementwise is free)."""
+        pure elementwise code (no zeros+dynamic-update-slice round trip on
+        an (m, n) operand)."""
         return (
             self.nr == self.m
             and not self.soc_groups

@@ -1,6 +1,6 @@
 """Batched symmetric-matrix packing (``vecm``/``mat``).
 
-TPU-native replacement for the reference's scalar-loop ``mat``/``vecm``
+Vectorized replacement for the reference's scalar-loop ``mat``/``vecm``
 (ConicIP.jl:87-151): pure gather/scatter with precomputed index maps, batched
 over a leading axis of cones. The packing convention is identical: row-major
 upper triangle with off-diagonal entries scaled by sqrt(2), so that

@@ -58,7 +58,7 @@ def _make_class():
     SCS = _scs_base()
 
     class _ConicIPSolver(SCS):
-        """CVXPY conic solver backed by :func:`conic_ip` on TPU."""
+        """CVXPY conic solver backed by :func:`conic_ip`."""
 
         # R/Q/S cones only (reference capability set, ConicIP.jl:411-417)
         SUPPORTED_CONSTRAINTS = [Zero, NonNeg, SOC, PSD]

@@ -23,8 +23,8 @@ the hot path). User-defined solvers plug in the same way as the reference's
 Solvers provided:
 
 - :func:`kktsolver_schur` — default; dense Schur complement
-  ``M = Q + Aᵀ(FᵀF)⁻¹A`` assembled as one MXU matmul and factored by
-  (Pallas) Cholesky. TPU-native analogue of the reference's fastest path
+  ``M = Q + Aᵀ(FᵀF)⁻¹A`` assembled as one matmul and factored by
+  Cholesky. Dense analogue of the reference's fastest path
   ``pivot(kktsolver_2x2)`` (kktsolvers.jl:272-349).
 - :func:`kktsolver_qr` — CVXOPT §10.2 double-QR (kktsolvers.jl:18-58);
   handles rank-deficient Q.

@@ -1,4 +1,4 @@
-"""Diagonal + low-rank Schur KKT solver — the TPU form of the lift trick.
+"""Diagonal + low-rank Schur KKT solver — the dense form of the lift trick.
 
 For problems whose inequality matrix is ``A = [I_n; A_s]`` — bound rows
 for every R coordinate plus a SMALL block of general rows tied to SOC

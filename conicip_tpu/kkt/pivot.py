@@ -60,8 +60,8 @@ def pivot(kktsolver_2x2, factor_dtype=None, lastmile=False):
         # (FᵀF)⁻¹ has κ ~ 1/μ near convergence. For pure-R specs it is
         # DIAGONAL: an f32 apply is eps32-accurate per component with no
         # cancellation, so the cheap cast path is exact enough (and the
-        # extra emulated-f64 ops were measured to double the already-slow
-        # diag-backend compile). SOC/SDP scalings MIX components — there
+        # extra f64 ops were measured to double the diag-backend
+        # compile). SOC/SDP scalings MIX components — there
         # an f32 apply carries ~eps32/μ relative error that refinement
         # cannot contract once it exceeds 1 (the measured ~1e-5 stall
         # floor on R+Q+S mixes) — so those specs run w2inv in the working

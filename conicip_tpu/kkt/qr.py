@@ -3,7 +3,7 @@
 Dense-QR analogue of the reference's ``kktsolver_qr`` (kktsolvers.jl:18-58):
 a one-time full QR of Gᵀ splits the space into range/null parts of the
 equality constraints; each iteration re-factors the reduced system
-``Q₂ᵀ(Q + AᵀF⁻¹F⁻ᵀA)Q₂`` on the MXU. Works with rank-deficient ``Q`` (the
+``Q₂ᵀ(Q + AᵀF⁻¹F⁻ᵀA)Q₂``. Works with rank-deficient ``Q`` (the
 Schur solver needs ``Q + Aᵀ(FᵀF)⁻¹A ≻ 0``; this one only needs it on the
 null space of G).
 """
@@ -18,8 +18,8 @@ _HI = jax.lax.Precision.HIGHEST
 
 
 def _mm(a, b):
-    # HIGHEST: the v5e default f32 matmul precision is a single bf16
-    # pass (see cones/scaling.py); exact for f64 operands
+    # HIGHEST: the GPU's default f32 matmul precision is TF32 (see
+    # cones/scaling.py); exact for f64 operands
     return jnp.matmul(a, b, precision=_HI)
 
 from ..cones import scaling as sc

@@ -1,15 +1,15 @@
-"""Dense Schur-complement KKT solver — the TPU-native default.
+"""Dense Schur-complement KKT solver — the default.
 
 The reference's fastest backend eliminates the cone block and sparse-LU
 factors the saddle system ``[[Q + Aᵀ(FᵀF)⁻¹A, Gᵀ], [G, 0]]``
-(kktsolver_2x2, kktsolvers.jl:281-310). TPUs want dense tiles, so here the
+(kktsolver_2x2, kktsolvers.jl:281-310). Here the operands are dense, and the
 Schur matrix is assembled as ``M = Q + Atilᵀ Atil`` with ``Atil = F⁻ᵀA``
 applied *structurally* (row scalings + batched rank-1 / congruence updates —
-one big MXU matmul, never materializing FᵀF, fixing the reference's worst
+one big matmul, never materializing FᵀF, fixing the reference's worst
 allocation pathology, report.md:148-151), and the saddle system is solved by
 a second Schur complement on G:
 
-    M = L Lᵀ  (blocked Cholesky)
+    M = L Lᵀ  (Cholesky)
     S = G M⁻¹ Gᵀ = (L⁻¹Gᵀ)ᵀ(L⁻¹Gᵀ),   S = Ls Lsᵀ
 
 Mixed-precision design (``factor_dtype=float32``): the whole inner solve
@@ -17,12 +17,11 @@ path — casts, assembly, factorization, AND every per-RHS application — runs
 in f32; the IPM's iterative-refinement loop against higher-precision
 residuals restores accuracy. Per-RHS triangular back-solves are replaced by
 GEMVs against an explicitly formed ``L⁻¹`` computed once per iteration:
-on TPU a vector triangular solve is a latency-bound ~0.12 ms sequential op
-while a (n,n) GEMV is ~7 us of MXU/VPU work, and the predictor + corrector
-+ refinement steps perform 3-6 back-solves per factorization, so trading
-one matrix triangular solve (L⁻¹, blocked and matmul-rich in XLA) for
-GEMV-only solves is a large win. The explicit inverse's extra rounding is
-bounded by κ(L)·eps_f32 per apply — exactly what refinement corrects.
+a vector triangular solve is a latency-bound sequential op while a GEMV is
+one parallel pass, and the predictor + corrector + refinement steps perform
+3-6 back-solves per factorization. Whether that trade pays on the GPU is
+not measured yet (ROADMAP Speed 5). The explicit inverse's extra rounding is
+bounded by κ(L)·eps per apply — exactly what refinement corrects.
 
 Last-mile full-precision iterations (``lastmile=True``): near convergence
 κ(M) ~ 1/μ exceeds what an f32 factorization can solve — refinement stalls
@@ -35,9 +34,8 @@ paying a warm-started full-f64 ladder re-dispatch (solver/__init__.py), a
 full-working-dtype path — and the IPM holds a single ``lax.cond`` per
 iteration that picks one INSIDE the same while_loop (solver/ipm.py). Only
 the final one or two iterations pay the f64 factorization. The variants
-are straight-line code: an earlier design with per-RHS ``lax.cond``s
-measured ~1-2.5 ms/iteration of pure control-flow overhead on v5e. Static
-f64 assembly alone (``assemble_dtype``) was measured NOT to rescue these
+are straight-line code: an earlier design with per-RHS ``lax.cond``s paid
+a large per-iteration control-flow overhead. Static f64 assembly alone (``assemble_dtype``) was measured NOT to rescue these
 stalls; the factorization is the binding constraint.
 """
 
@@ -90,9 +88,9 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
     fd = wd if factor_dtype is None else factor_dtype
     # Assembly precision can exceed factorization precision: SOC scalings
     # span ~16 decades near convergence and the Gram assembly cancels
-    # catastrophically in f32 — assembling in f64 (emulated, ~1-3 ms) and
-    # factoring the equilibrated result in f32 rescues a class of
-    # far-from-tolerance stalls at ~1/50 the full-f64 cost.
+    # catastrophically in f32 — assembling in f64 and factoring the
+    # equilibrated result in f32 rescues a class of far-from-tolerance
+    # stalls.
     ad = fd if assemble_dtype is None else assemble_dtype
     lastmile = bool(lastmile) and fd != wd
 
@@ -147,8 +145,6 @@ def kktsolver_2x2(Q, A, G, spec: ConeSpec, *, factor_dtype=None,
             )
             # One-time explicit triangular inverse: every subsequent
             # back-solve becomes two GEMVs (module docstring cost model).
-            # ops/cholesky.tri_inv routes emulated-f64 through the blocked
-            # GEMM-dominant kernel on TPU.
             return tri_inv(L)
 
         Ms, dscale = _equilibrate(M)

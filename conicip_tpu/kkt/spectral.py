@@ -21,10 +21,8 @@ solve into an elementwise divide in the V basis:
     a = vecm(V Ã Vᵀ),   c = q·a − x
 
 — EXACT, with ONE batched d×d eigendecomposition per iteration and four
-congruence matmuls per right-hand side. No n×n Schur assembly, no
-factorization: on v5e the f64 Schur factorization of the (B, t, t)
-system (t = d(d+1)/2) costs 9-39 ms per batched iteration
-(benchmarks/tier2_body_tpu.json) while this path costs ~2-3 ms.
+congruence matmuls per right-hand side. No t×t Schur assembly
+(t = d(d+1)/2) and no factorization.
 
 Applicability is checked host-side by :func:`spectral_applicable`
 (mirroring ``kkt/diag.separable``); the traced solver trusts the caller.
@@ -80,8 +78,7 @@ def spectral_applicable(Q, A, G, spec: ConeSpec) -> bool:
 
 def kktsolver_spectral(Q, A, G, spec: ConeSpec, *, eig_dtype=None):
     """3-level KKT callback (module docstring). ``eig_dtype`` follows the
-    cone layer's contract (None = stock at working dtype; ``"refined"`` =
-    GEMM-dominant f32-seed + exact-f64 sweeps — the TPU choice)."""
+    cone layer's contract (None = stock at the working dtype)."""
     from ..cones.algebra import _eigh_d
     from ..cones.segment import (put_group, put_r, take_group, take_r)
 

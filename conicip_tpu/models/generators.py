@@ -68,7 +68,7 @@ def box_qp_dense(n: int = 500, seed: int = 42) -> Problem:
 
 def box_qp_sparse(n: int = 1000, seed: int = 42) -> Problem:
     # "sparse" in the reference = diagonal Q (spdiagm, profile.jl:33);
-    # the TPU path is dense either way.
+    # the operands here are dense either way.
     rng = np.random.default_rng(seed)
     Q = np.diag(1.0 + rng.random(n))
     c = rng.standard_normal(n)
@@ -151,7 +151,7 @@ def batched_box_qp(batch: int, n: int = 100, seed: int = 0):
     batch axis and the shared cone_dims."""
     rng = np.random.default_rng(seed)
     Ms = rng.standard_normal((batch, n, n))
-    Q = np.einsum("bij,bik->bjk", Ms, Ms) / n + np.eye(n)
+    Q = np.matmul(np.swapaxes(Ms, -1, -2), Ms) / n + np.eye(n)
     c = rng.standard_normal((batch, n))
     A = np.broadcast_to(np.vstack([np.eye(n), -np.eye(n)]), (batch, 2 * n, n)).copy()
     b = np.broadcast_to(-np.ones(2 * n), (batch, 2 * n)).copy()

@@ -1,13 +1,17 @@
 """ctypes bindings for the native (C++) host-side kernels.
 
-The shared library is built on demand from ``native/pivoted_qr.cpp`` at the
-repo root (``make -C native``); if the toolchain or source tree is absent
-the callers fall back to scipy implementations.
+The shared library is not committed: it is built on first use from
+``native/pivoted_qr.cpp`` at the repo root (``make -C native``), under a
+lock so that concurrent processes build it once, into a temporary file
+renamed into place. If the toolchain or source tree is absent the callers
+fall back to scipy implementations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
@@ -30,12 +34,7 @@ def _load() -> Optional[ctypes.CDLL]:
     so = _NATIVE_DIR / _LIB_NAME
     if not so.exists() and (_NATIVE_DIR / "pivoted_qr.cpp").exists():
         try:
-            subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
+            _build(so)
         except Exception:
             return None
     if not so.exists():
@@ -54,6 +53,27 @@ def _load() -> Optional[ctypes.CDLL]:
     except OSError:
         _lib = None
     return _lib
+
+
+def _build(so: Path) -> None:
+    dir_fd = os.open(_NATIVE_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(dir_fd, fcntl.LOCK_EX)  # released when the fd closes
+        if so.exists():  # another process built it while we waited
+            return
+        tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+            os.replace(_NATIVE_DIR / tmp, so)
+        finally:
+            (_NATIVE_DIR / tmp).unlink(missing_ok=True)
+    finally:
+        os.close(dir_fd)
 
 
 def pivoted_qr_rank(

@@ -1,86 +1,34 @@
 """Cholesky factorization and triangular solves — the solver's hot kernel.
 
-The default path uses XLA's native ops; ``factor_dtype=float32`` enables the
-mixed-precision mode where the O(n³) factorization runs on the MXU in f32 and
-the IPM's iterative-refinement loop (a first-class mechanism here, promoted
-from the reference's safety net at ConicIP.jl:907-921) restores f64 accuracy.
-
-A hand-written Pallas blocked Cholesky lives in ``ops/pallas_cholesky.py`` and
-is selected automatically on TPU for f32 factorizations of MXU-aligned sizes.
+Thin wrappers over XLA's native ops (cuSOLVER ``potrf``/``trsm`` on the
+GPU, LAPACK on the CPU). ``factor_dtype=float32`` enables the
+mixed-precision mode where the O(n³) factorization runs in f32 and the
+IPM's iterative-refinement loop (a first-class mechanism here, promoted
+from the reference's safety net at ConicIP.jl:907-921) restores f64
+accuracy.
 """
 
 from __future__ import annotations
 
-
-
-import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
 __all__ = ["cholesky", "tri_inv", "cho_solve", "CholFactor"]
 
 
-def _tpu_like() -> bool:
-    return jax.default_backend() not in ("cpu", "gpu", "cuda", "rocm")
-
-
 def cholesky(M: jnp.ndarray, factor_dtype=None) -> jnp.ndarray:
     """Lower-triangular Cholesky factor, optionally in a lower precision."""
-    in_dtype = M.dtype
-    if factor_dtype is not None and factor_dtype != in_dtype:
+    if factor_dtype is not None and factor_dtype != M.dtype:
         M = M.astype(factor_dtype)
-    # Emulated-f64 on TPU: XLA's monolithic op serializes the
-    # double-double recurrences at ~65 µs PER COLUMN on v5e (69 ms at
-    # n=1024, and still ~3.6 ms at n=55 — tools/devbench.py); the blocked
-    # kernel puts ~all FLOPs in 2.3 TF/s f64 GEMMs instead. The threshold
-    # covers even tiny factors: the batched f64 rescue tier (solve_batch)
-    # vmaps this over B instances, where the f32-seed + GEMM-refine base
-    # case batches on the MXU while the monolithic op stays serial.
-    if M.dtype == jnp.float64 and M.ndim == 2 and M.shape[0] > 8 \
-            and _tpu_like():
-        from .blocked64 import blocked_cholesky
-
-        return blocked_cholesky(M)
-    import os
-
-    # Opt-in: the current VMEM-resident kernel is correct but measured
-    # ~10x slower than XLA's cholesky on v5e at n=1024 (2.1 ms vs 0.21 ms,
-    # tools/devbench.py) — its per-column fori_loop steps pay ~1.7 us each
-    # of Mosaic loop overhead. Off by default until the rewrite lands.
-    use_pallas = os.environ.get("CONICIP_TPU_PALLAS_CHOLESKY", "0") == "1"
-    if use_pallas and M.dtype == jnp.float32 and M.ndim == 2 and M.shape[0] >= 128:
-        from .pallas_cholesky import _BLOCK, _MAX_VMEM_N, pallas_cholesky_available
-
-        n = M.shape[0]
-        pad = (-n) % _BLOCK
-        if pad and n + pad <= _MAX_VMEM_N and pallas_cholesky_available(
-            n + pad, M.dtype
-        ):
-            # pad with an identity block: chol([[M,0],[0,I]]) = [[L,0],[0,I]]
-            Mp = jnp.zeros((n + pad, n + pad), M.dtype)
-            Mp = Mp.at[:n, :n].set(M)
-            Mp = Mp.at[jnp.arange(n, n + pad), jnp.arange(n, n + pad)].set(1.0)
-            from .pallas_cholesky import cholesky_f32
-
-            return cholesky_f32(Mp)[:n, :n]
-        from .pallas_cholesky import cholesky_f32
-
-        return cholesky_f32(M)
     return jnp.linalg.cholesky(M)
 
 
 def tri_inv(L: jnp.ndarray) -> jnp.ndarray:
     """Explicit lower-triangular inverse L⁻¹ (the one-time per-factor
     inverse that turns every back-solve into two GEMVs — kkt/schur.py
-    cost model), routed through the blocked GEMM-dominant kernel for
-    emulated-f64 on TPU."""
-    if L.dtype == jnp.float64 and L.ndim == 2 and L.shape[0] > 8 \
-            and _tpu_like():
-        from .blocked64 import blocked_tri_inv
-
-        return blocked_tri_inv(L)
+    cost model)."""
     return solve_triangular(
-        L, jnp.eye(L.shape[0], dtype=L.dtype), lower=True
+        L, jnp.eye(L.shape[-1], dtype=L.dtype), lower=True
     )
 
 

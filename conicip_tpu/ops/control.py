@@ -5,9 +5,9 @@ for every element. That is the right lowering for cheap branches, but it
 silently destroys the point of guarding an *expensive fallback* with a
 cond — every vmapped caller pays the fallback unconditionally. The batched
 escalation ladder (parallel/batch.py) runs ``ipm_solve`` under ``vmap``,
-so every such guard on the solve path (the exact-fallback guards in
-ops/blocked64.py, the escalating-ridge factorization retries in
-kkt/schur.py, the certified-residual recompute in solver/ipm.py) was
+so every such guard on the solve path (the escalating-ridge
+factorization retries in kkt/schur.py, the certified-residual recompute in
+solver/ipm.py) was
 re-paying the cost the guard exists to avoid.
 
 A 0/1-trip ``lax.while_loop`` has the batching semantics we actually

@@ -1,13 +1,13 @@
 """Near-f64-accurate mat-vec products from precomputed f32 slices.
 
-Why this exists: v5e has no hardware f64. XLA's emulated f64 matmul is
-correct but was measured (xprof) to spend ~4 ms per residual evaluation at
-n=1000 — dominated by re-slicing the *constant* operands into its internal
-multi-slice format inside the solver loop on every evaluation, traffic that
-cannot be hoisted out of a ``lax.cond``. This module does the slicing ONCE
-at setup (Ozaki-style error-free splitting) and evaluates products with a
-handful of MXU matmuls, reaching ~1e-12 relative-to-scale accuracy at
-roughly f32 cost.
+Why this exists: the opt-in f32 regime (``factor_dtype=float32``) runs the
+IPM's per-iteration products in f32 and recertifies residuals near every
+tolerance decision. Those certified residuals need near-f64 accuracy from
+f32 arithmetic: this module slices the constant operands ONCE at setup
+(Ozaki-style error-free splitting) and evaluates products with a handful of
+f32 matmuls, reaching ~1e-12 relative-to-scale accuracy. Whether this beats
+a plain f64 product on hardware with f64 units is an open question (ROADMAP
+Design 1); ``PERF.md`` records both times.
 
 Scheme (Ozaki et al., error-free transformation of dot products):
 
@@ -15,7 +15,8 @@ Scheme (Ozaki et al., error-free transformation of dot products):
   (exact scaling), then split into ``NS`` slices of ``NBITS``-bit signed
   integers: ``A/tau = sum_k M_k 2^(-k*NBITS)`` with ``|M_k| <= 2^(NBITS-1)``.
   Slices are stored as small-integer-valued f32 matrices — exactly
-  representable even in bf16, so the MXU's fastest path is exact.
+  representable even in TF32 or bf16, so the DEFAULT-precision product
+  (TF32 on the GPU's tensor cores) is exact.
 - The vector is scaled by a global power of two and split the same way at
   apply time (cheap f64 vector ops).
 - A slice-pair product ``M_k @ m_l`` accumulates integers bounded by
@@ -27,11 +28,9 @@ Scheme (Ozaki et al., error-free transformation of dot products):
   row scale (NSLICES=7 at 7 bits, minus 2 headroom bits). Accuracy is absolute with respect to ``tau_i * sigma_x`` —
   exactly what residual evaluation needs.
 
-Cost at (2000,1000): ~7 small MXU matmuls + ~50 us of f64 vector work,
-vs ~4 ms for the emulated-f64 path it replaces. The one-time matrix
-slicing itself runs in f32 with a single exact-f64 re-remainder
-(:func:`_split_matrix`) — the all-f64 split was measured to dominate
-per-solve setup (~7 ms at n=500).
+Cost: ~7 small f32 matmuls plus a few tens of r-length f64 vector ops. The
+one-time matrix slicing itself runs in f32 with a single exact-f64
+re-remainder (:func:`_split_matrix`).
 """
 
 from __future__ import annotations
@@ -60,10 +59,8 @@ def _split(x, nslices: int):
 
 def _split_matrix(x, nslices: int):
     """Same decomposition contract as :func:`_split`, but for the big
-    one-time MATRIX split: the window arithmetic runs in f32 (~40x cheaper
-    per pass on TPU, where every f64 elementwise pass is emulated — the
-    all-f64 split was measured to dominate per-solve setup at ~7 ms for an
-    n=500 problem), with ONE exact-f64 re-remainder halfway.
+    one-time MATRIX split: the window arithmetic runs in f32, with ONE
+    exact-f64 re-remainder halfway.
 
     The re-remainder keeps the decomposition sound: windows 1..h come from
     the f32 image of x (|w_k| ≤ 2^(NBITS-1)+1 as always); the exact f64
@@ -143,7 +140,7 @@ class PreciseMatvec:
         xs = _split(x / sigma, NSLICES)  # list of (c,) f32 integer slices
 
         # One matmul per A-slice k with all needed x-slices as extra RHS
-        # columns (pairs k+l <= NSLICES+1; the MXU pads lanes anyway).
+        # columns (pairs k+l <= NSLICES+1).
         # Each pair column is EXACT integers in f32; pairs are combined
         # directly in f64 (a few tens of r-length fmas) — cross-pair f32
         # sums could lose exactness in the adversarial all-max-sign case.

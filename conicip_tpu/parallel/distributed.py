@@ -10,9 +10,9 @@ is a sum over constraint-row blocks — the natural sharding axis
 kktsolvers.jl:275-310). The design here shards BOTH O(·³) stages:
 
 1. **Assembly** (O(mn²)): rows of ``Atil`` are partitioned over the mesh
-   axis, each device computes its partial Gram ``Atil_kᵀ Atil_k`` on its
-   MXU, and one ``psum_scatter`` reduces the partials *directly into block
-   rows of M* — the full (n, n) Schur matrix is never materialized on any
+   axis, each device computes its partial Gram ``Atil_kᵀ Atil_k``, and
+   one ``psum_scatter`` reduces the partials *directly into block rows of
+   M* — the full (n, n) Schur matrix is never materialized on any
    single device.
 2. **Factorization** (O(n³)): a 1-D block-row panel Cholesky. Each of the
    ``ntp`` devices owns one block row of M; per panel, the current block
@@ -25,8 +25,8 @@ kktsolvers.jl:275-310). The design here shards BOTH O(·³) stages:
    O(n³/ntp) scaling). Every per-RHS solve is then two sharded GEMVs:
    ``M̃⁻¹x = D·Wᵀ(W(D·x))`` — one ``psum`` and one ``all_gather`` of an
    n-vector each. This mirrors the replicated production path's
-   explicit-L⁻¹ design (kkt/schur.py) which replaces ~0.12 ms sequential
-   triangular solves with ~7 µs GEMVs on TPU.
+   explicit-L⁻¹ design (kkt/schur.py), which replaces sequential
+   triangular solves with GEMVs.
 
 Cone generality — and cone-block scaling parallelism (SURVEY.md §2.3):
 the NT scaling application ``Atil = F⁻ᵀA`` is itself **sharded over the
@@ -94,7 +94,7 @@ def _psum_gather(x_loc, axis, me, r, n_total):
     zero-embedded block. Semantically identical to
     ``all_gather(tiled=True)`` but, unlike all_gather, psum's output is
     statically known-replicated to the VMA tracker — keeping
-    ``check_vma=True`` on (VERDICT r2 weak item 4). Extra cost vs
+    ``check_vma=True`` on. Extra cost vs
     all-gather is ~2x the bytes of a small (n,) or (n, p) operand — noise
     next to the O(n³/ntp) compute these kernels do."""
     buf = jnp.zeros((n_total,) + x_loc.shape[1:], x_loc.dtype)

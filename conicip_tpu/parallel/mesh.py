@@ -19,9 +19,9 @@ def make_mesh(
     """Build a mesh over the available devices.
 
     Default layout puts all devices on the data-parallel (batch) axis with a
-    trivial tensor-parallel axis; pass ``axis_sizes`` to split. ICI-friendly
-    ordering is delegated to ``mesh_utils.create_device_mesh`` when the
-    requested shape is multi-dimensional.
+    trivial tensor-parallel axis; pass ``axis_sizes`` to split. The devices
+    are laid out in ``jax.devices()`` order: the cards of one host are
+    joined all to all, so no ordering is better than another.
     """
     devices = devices if devices is not None else jax.devices()
     ndev = len(devices)
@@ -30,10 +30,5 @@ def make_mesh(
     axis_sizes = tuple(int(s) for s in axis_sizes)
     if int(np.prod(axis_sizes)) != ndev:
         raise ValueError(f"mesh {axis_sizes} does not match {ndev} devices")
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_device_mesh(axis_sizes, devices=devices)
-    except Exception:
-        arr = np.asarray(devices).reshape(axis_sizes)
+    arr = np.asarray(devices).reshape(axis_sizes)
     return Mesh(arr, axis_names[: len(axis_sizes)])

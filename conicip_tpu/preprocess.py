@@ -2,7 +2,7 @@
 
 Host-side (numpy/scipy) re-implementation of the reference's preprocessor
 (preprocessor.jl:1-96). Rank detection is a one-time cost outside the hot
-loop, so it runs on the host CPU — the TPU-design decision recorded in
+loop, so it runs on the host CPU — the design decision recorded in
 SURVEY.md §2.2 (sparse rank-revealing QR has no XLA equivalent; a
 column-pivoted dense QR does the same job here).
 

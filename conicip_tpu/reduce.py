@@ -1,6 +1,6 @@
 """Null-space elimination of equality constraints.
 
-TPU motivation: the default KKT path factors equalities via a second Schur
+Motivation: the default KKT path factors equalities via a second Schur
 complement ``S = G M̃⁻¹ Gᵀ``, which *squares* the conditioning of the f32
 factorization — measured to stall around 1e-4 residuals on dense-Q problems
 as μ → 0 (κ(M̃) ~ 1/μ). Eliminating ``Gy = d`` once at setup with an

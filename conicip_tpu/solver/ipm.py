@@ -1,6 +1,6 @@
 """Mehrotra predictor-corrector interior-point core.
 
-TPU-native re-implementation of the reference's ``conicIP`` iterate loop
+Re-implementation of the reference's ``conicIP`` iterate loop
 (ConicIP.jl:364-939): the whole solve is one ``lax.while_loop`` under jit —
 static shapes, no data-dependent Python control flow, every per-iteration
 quantity a fused XLA computation. Termination/status logic is mask-based
@@ -13,10 +13,8 @@ CVXOPT+ECOS infeasibility certificates, best-iterate tracking, iterative
 refinement, fraction-to-boundary step) so the reference's test suite carries
 over; see inline citations.
 
-Mixed-precision residuals (the TPU-critical design point): TPUs have no
-hardware f64 — XLA emulates it, and an emulated f64 (n,n) mat-vec costs
-~40x its f32 counterpart (measured 0.30 ms vs 0.007 ms at n=1024 on v5e).
-The residual/certificate evaluations are the only place the IPM *needs*
+Mixed-precision residuals (the opt-in f32 regime, ``factor_dtype=float32``):
+the residual/certificate evaluations are the only place the IPM *needs*
 more than f32: every product inside the KKT solve is corrected by
 refinement anyway. So with ``mixedResiduals`` on, all residual mat-vecs run
 in f32 each iteration, and a ``lax.cond`` recomputes them in full precision
@@ -60,7 +58,7 @@ class IPMOptions:
     cache_nestodd: bool = False
     infeasTol: Optional[float] = None
     refinementThreshold: Optional[float] = None
-    # TPU mixed-precision residual mode (see module docstring). Enabled
+    # Mixed-precision residual mode (see module docstring). Enabled
     # automatically by conic_ip when factor_dtype=float32 and the working
     # dtype is float64.
     mixedResiduals: bool = False
@@ -69,8 +67,8 @@ class IPMOptions:
     # runs plain Mehrotra): after the corrector step, up to this many extra
     # back-solves against the SAME factorization push outlier
     # complementarity products back into [0.1, 10]·σμ, enlarging the
-    # steplength. On TPU a back-solve costs a small fraction of the O(n³)
-    # refactorization it can save, so accepted correctors are near-free;
+    # steplength. A back-solve costs a small fraction of the O(n³)
+    # refactorization it can save, so accepted correctors are cheap;
     # rejected ones keep the uncorrected direction (steplength never
     # decreases). 0 disables.
     centralityCorrectors: int = 0
@@ -83,17 +81,6 @@ class IPMOptions:
     # ladder as the escape hatch (a breakdown ends Abandoned/Error and
     # the f64 tier re-solves warm). False = always full precision.
     fastEig: Optional[bool] = None
-    # Full-precision S-cone decompositions via the GEMM-dominant refined
-    # kernels (ops/smalleig: f32-seed eigh + exact-f64 sweeps, unrolled
-    # exact-f64 chol / triangular solve) instead of XLA's monolithic
-    # emulated-f64 ops, WHEREVER the solve would otherwise run them in
-    # f64. On v5e the monolithic ops serialize — catastrophically so
-    # under vmap (the batched rescue tiers) — while the refined forms are
-    # batched matmuls at the same-or-better accuracy. None = stock f64
-    # (single-solve default; at batch size 1 the refined forms' fixed
-    # per-op latency is a wash). solve_batch enables it on its S-cone
-    # tiers, where the batch amortization is decisive.
-    refinedEig: Optional[bool] = None
     # Two-variant KKT generator usage. None (default) = use the
     # fast/slow ``mode`` contract when the generator offers it — the
     # in-loop last-mile escalation, correct and cheap for SINGLE solves
@@ -111,9 +98,7 @@ class IPMOptions:
     # within this factor of tolerance (0 = reactive-only, the default:
     # fire on the first non-improving iteration near tolerance). Proactive
     # firing trades full-precision factorization cost for the 1-2
-    # iterations a reactive trigger wastes detecting the stall — cheap
-    # since the blocked GEMM-dominant emulated-f64 kernels
-    # (ops/blocked64.py) carry the slow branch.
+    # iterations a reactive trigger wastes detecting the stall.
     lastmileProactive: float = 0.0
     # Full-precision stall cutoff: end Abandoned (best iterate kept) after
     # this many consecutive non-improving iterations once the best
@@ -144,10 +129,8 @@ def _normsafe(x):
 
 
 def _dot(a, b):
-    """Inner product as multiply+reduce. XLA lowers a true f64 ``jnp.dot``
-    to the slow emulated dot-general path on TPU (~80 us for a 2000-vector,
-    measured) while elementwise multiply + reduce costs ~5 us at identical
-    accuracy — and one IPM iteration takes ~18 inner products."""
+    """Inner product as one fused multiply+reduce (one IPM iteration takes
+    ~18 of them)."""
     return jnp.sum(a * b)
 
 
@@ -225,10 +208,8 @@ def ipm_solve(
         Q32, GA32, GAt32 = Q.astype(f32), GA.astype(f32), GAt.astype(f32)
         eps32 = jnp.asarray(jnp.finfo(jnp.float32).eps, dtype)
         # Sliced operators for certified residual evaluations (~1e-11 of
-        # the operand scale at ~f32 cost): XLA's emulated-f64 matmul was
-        # measured at ~4 ms per evaluation here because it re-slices the
-        # constant operands inside the loop — PreciseMatvec slices once at
-        # setup (ops/precise.py).
+        # the operand scale from f32 products, operands sliced once at
+        # setup — ops/precise.py).
         from ..ops.precise import PreciseMatvec
 
         Qp, GAp, GAtp = PreciseMatvec(Q), PreciseMatvec(GA), PreciseMatvec(GAt)
@@ -411,9 +392,7 @@ def ipm_solve(
     # Fast-phase low-precision decompositions: when the in-loop escalation
     # contract is available AND the spec has S cones, the fast iterations
     # run every small-matrix eigh/chol/eigvals (NT scaling, max-step,
-    # Lyapunov division) in f32 — each costs ~0.4 ms of latency in f64 on
-    # v5e vs ~free in f32, at the SAME effective accuracy (the f64 eigh
-    # only achieves ~5e-7 there anyway). The slow branch reverts to full
+    # Lyapunov division) in f32. The slow branch reverts to full
     # precision, and a non-finite fast iteration escalates instead of
     # erroring (rescue below).
     if opts.fastEig is None:
@@ -429,12 +408,6 @@ def ipm_solve(
         _fast_eig = False
         _force_fast_eig = False
 
-    # Full-precision decomposition implementation (everywhere the loop
-    # would run a stock f64 eigh/chol/tri-solve): "refined" routes them
-    # through the GEMM-dominant batched kernels (see IPMOptions.refinedEig).
-    slow_ed = ("refined"
-               if (opts.refinedEig and bool(spec.sdp_groups)) else None)
-
     def body(carry):
         (z, sol, optBest, k, rnorm_prev, rstep_prev, P, drift, lm_on,
          stall) = carry
@@ -443,14 +416,14 @@ def ipm_solve(
         if _fast_eig:
             F = jax.lax.cond(
                 lm_on,
-                lambda: sc.nt_scaling(spec, z.v, z.s, eig_dtype=slow_ed),
+                lambda: sc.nt_scaling(spec, z.v, z.s),
                 lambda: sc.nt_scaling(spec, z.v, z.s,
                                       eig_dtype=jnp.float32),
             )
         elif _force_fast_eig:
             F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=jnp.float32)
         else:
-            F = sc.nt_scaling(spec, z.v, z.s, eig_dtype=slow_ed)
+            F = sc.nt_scaling(spec, z.v, z.s)
         FinvT = sc.nt_inv_adjoint(spec, F)
         lam = sc.apply(spec, F, z.v)  # scaled point: = F⁻ᵀ z.s too
 
@@ -458,10 +431,9 @@ def ipm_solve(
         # Mixed mode carries the three product vectors across iterations,
         # updating them incrementally after each step (P ← P − α·K·Δz, a
         # few f32 mat-vecs) with `drift` bounding the accumulated error in
-        # relative-residual units. The emulated-f64 recompute — ~4 ms on
-        # v5e, dominated by XLA re-slicing the constant operands inside the
-        # loop — then fires only when a tolerance decision is near AND the
-        # drift could affect it: typically once per solve.
+        # relative-residual units. The certified recompute then fires only
+        # when a tolerance decision is near AND the drift could affect it:
+        # typically once per solve.
         if mixed:
             near = (
                 (R_est := residual_block(P, z, lam)).rmax < sw * opts.optTol
@@ -480,7 +452,7 @@ def ipm_solve(
             fire = fire | (drift > 0.1 * R_est.rmax)
 
             # cond_once, not lax.cond: under vmap (solve_batch) a cond
-            # becomes a select and the emulated-f64 recompute would run
+            # becomes a select and the certified recompute would run
             # for every instance EVERY iteration — cond_once keeps it one
             # batched pass on the (typically one) iteration where some
             # instance's tolerance decision actually needs certifying.
@@ -638,12 +610,7 @@ def ipm_solve(
             # is deliberate — near tolerance an f32 step achieves less
             # residual reduction than a full-precision one even when
             # healthy (a stagnation-gated variant was measured to cost +2
-            # iterations on many_small_socs), and the full-precision branch
-            # is cheap: its factorization runs through the blocked
-            # GEMM-dominant emulated-f64 kernels (ops/blocked64.py), ~1.2x
-            # an f32 iteration rather than the ~10x of XLA's monolithic
-            # f64 cholesky that made proactive firing a 4.5x wall-time
-            # regression on box_qp_dense in the round-3 battery.
+            # iterations on many_small_socs).
             lm_on = lm_on | (
                 R.rmax < opts.lastmileProactive * opts.optTol
             )
@@ -655,8 +622,7 @@ def ipm_solve(
         # corrector anyway, mat(λ) is decomposed ONCE per iteration
         # (sdp_eighs), and the two per-site eighs stack into one batched
         # call (maxstep_multi). Cuts the batched tiny-eigh count per
-        # iteration from ~15 to ~4 — the measured dominator of the
-        # batched small-SDP family (VERDICT r4). R/Q-only specs keep the
+        # iteration from ~15 to ~4. R/Q-only specs keep the
         # original direct-frame path bit-for-bit.
         _lam_frame = bool(spec.sdp_groups)
 
@@ -704,12 +670,11 @@ def ipm_solve(
             r = Vec4(r0.y, r0.w, r0.v, rleft.s - lc)
 
             # Newton step + iterative refinement (ConicIP.jl:907-921).
-            # On TPU this loop doubles as the mixed-precision recovery
-            # mechanism for the f32 factorization. The K·Δz products run
-            # through the fast (f32) stacked operators: refinement only
+            # This loop doubles as the mixed-precision recovery mechanism
+            # for the f32 factorization. In mixed mode the K·Δz products
+            # run through the fast (f32) stacked operators: refinement only
             # needs the residual accurately *relative to Δz*, and near
-            # convergence ‖Δz‖ is small, so the f32 floor costs nothing —
-            # while an emulated-f64 K·Δz would cost ~2 ms per step.
+            # convergence ‖Δz‖ is small, so the f32 floor costs nothing.
             def K4(dz):
                 Pd = products_fast(dz.y, dz.w, dz.v)
                 return Vec4(
@@ -864,11 +829,10 @@ def ipm_solve(
                     lm_on,
                     lambda z: _take_step_with(
                         solve3x3gen(F, FinvT, mode="slow"), z,
-                        eig_dtype=slow_ed,
                     ),
                     lambda z: _take_step_with(
                         solve3x3gen(F, FinvT, mode="fast"), z,
-                        eig_dtype=jnp.float32 if _fast_eig else slow_ed,
+                        eig_dtype=jnp.float32 if _fast_eig else None,
                     ),
                     z,
                 )
@@ -876,7 +840,7 @@ def ipm_solve(
             def take_step(z):
                 return _take_step_with(
                     solve3x3gen(F, FinvT), z,
-                    eig_dtype=jnp.float32 if _force_fast_eig else slow_ed,
+                    eig_dtype=jnp.float32 if _force_fast_eig else None,
                 )
 
         def no_step(z):
@@ -950,7 +914,7 @@ def ipm_solve(
 
 
 def _print_banner():
-    print("\n > CONICIP-TPU INTERIOR POINT SOLVER v0.1\n")
+    print("\n > CONICIP INTERIOR POINT SOLVER v0.1\n")
     print(
         "            Optimality                      Objective              "
         "Infeasibility       "

@@ -10,7 +10,7 @@ An LP is the conic problem with Q = 0 (reference tutorial analogue:
 Note the sign convention: the solver MINIMIZES ½yᵀQy − cᵀy, so the cost
 vector enters with a plus sign when you want to minimize −cᵀy.
 
-Run: python examples/lp.py        (CPU or TPU; finishes in seconds)
+Run: python examples/lp.py        (CPU or GPU; finishes in seconds)
 """
 
 import numpy as np

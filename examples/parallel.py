@@ -1,11 +1,11 @@
 """Data-parallel batched solving: vmap batches, device meshes, warm
 re-solves, and checkpoint/resume.
 
-The reference solves one problem per call (ConicIP.jl:400-510). On TPU the
-first free parallelism axis is the PROBLEM BATCH: the IPM core is
-mask-based and vmap-safe, so a stack of B independent conic QPs compiles
-to ONE device program whose per-iteration work is batched matmul/chol/eigh
-— the shapes the MXU likes. This example walks the production workflow:
+The reference solves one problem per call (ConicIP.jl:400-510). On an
+accelerator the first free parallelism axis is the PROBLEM BATCH: the IPM
+core is mask-based and vmap-safe, so a stack of B independent conic QPs
+compiles to ONE device program whose per-iteration work is batched
+matmul/chol/eigh. This example walks the production workflow:
 
 1. ``solve_batch`` on a stack of scenario QPs (one compile, B solves),
 2. the same batch SHARDED over a device mesh (``jax.sharding`` — zero
@@ -51,11 +51,9 @@ print(f"batch of {B}: all Optimal, max resid {resid.max():.2e}, "
       f"iters {bs.Iter.tolist()}")
 
 # ── 2. the same batch sharded over a device mesh ─────────────────────
-# On a TPU pod slice this is the multi-chip data-parallel path; the
-# solver inserts ZERO cross-instance collectives (each instance's work is
-# local to its device), so weak scaling is communication-free by
-# construction (tools/scaling_report.py proves this from the compiled
-# HLO).
+# On several GPUs this is the data-parallel path; the solver inserts no
+# cross-instance collectives (each instance's work is local to its
+# device; only the loops' 1-bit termination consensus crosses devices).
 import jax
 
 ndev = len(jax.devices())

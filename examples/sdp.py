@@ -43,10 +43,10 @@ assert sol.status == "Optimal"
 assert np.max(np.abs(Y - expected)) < 1e-5
 assert np.linalg.eigvalsh(Y).min() > -1e-7
 
-# Batched variant — the TPU production pattern for many small SDPs
+# Batched variant — the production pattern for many small SDPs
 # (covariance repair): stack instances and let vmap batch every
-# per-iteration eigh/chol into one kernel. See tools/batched_bench.py
-# for the measured throughput on a v5e chip.
+# per-iteration eigh/chol into one kernel. tools/bench_batched.py times
+# it on a GPU.
 from conicip_tpu.models import batched_small_sdp
 from conicip_tpu.parallel import solve_batch
 

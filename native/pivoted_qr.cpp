@@ -3,7 +3,7 @@
 // Native backend for conicip_tpu.preprocess.imcols — the framework's
 // analogue of the reference's SuiteSparse/SPQR rank-revealing QR
 // (preprocessor.jl:17-21). Runs on the host CPU (one-time preprocessing
-// cost, outside the compiled TPU hot loop).
+// cost, outside the compiled solver loop).
 //
 // C ABI (ctypes-friendly):
 //   cip_pivoted_qr(A, m, n, rdiag, piv)

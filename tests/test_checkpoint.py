@@ -1,4 +1,4 @@
-"""Checkpoint/resume for long batched solves (new TPU-scale subsystem —
+"""Checkpoint/resume for long batched solves (new subsystem —
 the reference has none, SURVEY.md §5)."""
 
 import numpy as np

@@ -145,6 +145,28 @@ def test_nt_scaling_property(rng):
     assert float(maxstep_to_cone(spec, lam1)) == pytest.approx(0.0)
 
 
+@pytest.mark.parametrize("d", [2, 5, 10, 30])
+def test_sdp_nt_scaling_svd_form(rng, d):
+    # The S-cone scaling is built from chol(Z), chol(S) and the SVD of
+    # LzᵀLs (nestod_sdc, ConicIP.jl:196-210): F z = F⁻ᵀ s = λ with mat(λ)
+    # diagonal and equal to the carried singular values, and the carried
+    # closed-form S⁻¹ inverting S.
+    spec = ConeSpec([("S", tri_dim(d))])
+    z = jnp.asarray(interior_point(rng, spec))
+    s = jnp.asarray(interior_point(rng, spec))
+    F = nt_scaling(spec, z, s)
+    lam1 = np.asarray(scaling.apply(spec, F, z))
+    lam2 = np.asarray(scaling.apply(spec, nt_inv_adjoint(spec, F), s))
+    scale = np.linalg.norm(lam1)
+    assert np.linalg.norm(lam1 - lam2) <= 1e-10 * scale
+    lam = np.asarray(F.sdp[0].lam[0])
+    assert np.all(lam > 0)
+    np.testing.assert_allclose(np.asarray(mat(jnp.asarray(lam1))),
+                               np.diag(lam), atol=1e-10 * scale)
+    S, Sinv = np.asarray(F.sdp[0].S[0]), np.asarray(F.sdp[0].Sinv[0])
+    np.testing.assert_allclose(S @ Sinv, np.eye(d), atol=1e-9)
+
+
 def _dense(spec, apply_fn, F, m, dtype=jnp.float64):
     cols = [apply_fn(spec, F, jnp.eye(m, dtype=dtype)[:, i]) for i in range(m)]
     return np.stack([np.asarray(c) for c in cols], axis=1)

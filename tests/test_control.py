@@ -1,19 +1,17 @@
 """vmap-safe conditional execution (ops/control.py).
 
-Semantics tests for ``cond_once`` / ``retry_while`` and for their hot
-call sites under ``vmap``: the blocked-f64 kernel guards (ADVICE round-3
-medium item — a vmapped ``lax.cond`` executes BOTH branches for every
-element) and the escalating-ridge factorization retries in kkt/schur.py.
+Semantics tests for ``cond_once`` / ``retry_while``, and the per-element
+behaviour under ``vmap`` of the factorizations that the escalating-ridge
+retries in kkt/schur.py guard (a vmapped ``lax.cond`` executes BOTH
+branches for every element, so each instance must stand on its own).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.scipy.linalg import solve_triangular
-
 import conicip_tpu  # noqa: F401  (x64 on)
-from conicip_tpu.ops.blocked64 import blocked_cholesky, blocked_tri_inv
+from conicip_tpu.ops.cholesky import cholesky, tri_inv
 from conicip_tpu.ops.control import cond_once, retry_while
 
 
@@ -105,24 +103,24 @@ def test_retry_while_gives_up_at_cap():
 
 
 @pytest.mark.parametrize("n", [55, 200])
-def test_blocked_cholesky_under_vmap(rng, n):
-    # the batched f64 rescue tier vmaps the factorization; the exact-
-    # fallback guard must stay correct element-wise under vmap
+def test_cholesky_under_vmap(rng, n):
+    # the batched solvers vmap the factorization: each element must match
+    # its own unbatched factor
     Ms = jnp.asarray(np.stack([_spd(n, rng) for _ in range(4)]))
-    L = jax.vmap(lambda M: blocked_cholesky(M, r=128))(Ms)
-    Lref = jnp.linalg.cholesky(Ms)
-    assert np.allclose(np.asarray(L), np.asarray(Lref), atol=1e-11)
+    L = jax.vmap(cholesky)(Ms)
+    for i in range(4):
+        Lref = np.linalg.cholesky(np.asarray(Ms[i]))
+        assert np.allclose(np.asarray(L[i]), Lref, atol=1e-11)
 
 
-def test_blocked_tri_inv_under_vmap_mixed_conditioning(rng):
+def test_tri_inv_under_vmap_mixed_conditioning(rng):
     # one well-conditioned + one κ(L)~1e5 instance in the same batch:
-    # per-element acceptance must hold even when only SOME instances
-    # would have taken the exact fallback
+    # each element's inverse must be accurate to its own conditioning
     n = 160
     M0 = _spd(n, rng)
     M1 = _spd(n, rng, cond=1e10)
-    Ls = jnp.linalg.cholesky(jnp.asarray(np.stack([M0, M1])))
-    W = jax.vmap(lambda L: blocked_tri_inv(L, r=128))(Ls)
+    Ls = jax.vmap(cholesky)(jnp.asarray(np.stack([M0, M1])))
+    W = jax.vmap(tri_inv)(Ls)
     for i in range(2):
         resid = np.max(np.abs(
             np.asarray(W[i]) @ np.asarray(Ls[i]) - np.eye(n)
@@ -130,13 +128,13 @@ def test_blocked_tri_inv_under_vmap_mixed_conditioning(rng):
         assert resid < 1e-9, f"instance {i}: {resid}"
 
 
-def test_blocked_cholesky_vmap_nan_isolation(rng):
-    # an indefinite instance must NaN-poison ONLY itself
+def test_cholesky_vmap_nan_isolation(rng):
+    # an indefinite instance must NaN-poison ONLY itself — the ridge
+    # retries in kkt/schur.py key off isfinite per instance
     n = 96
     good = _spd(n, rng)
     bad = good - 10.0 * np.eye(n)
-    Ms = jnp.asarray(np.stack([good, bad]))
-    L = np.asarray(jax.vmap(lambda M: blocked_cholesky(M, r=128))(Ms))
+    L = np.asarray(jax.vmap(cholesky)(jnp.asarray(np.stack([good, bad]))))
     assert np.allclose(L[0], np.linalg.cholesky(good), atol=1e-11)
     assert not np.isfinite(L[1]).all()
 

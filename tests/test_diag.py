@@ -1,5 +1,5 @@
 """Structure-exploiting diagonal-Schur KKT solver (conicip_tpu/kkt/diag.py)
-— the TPU-native analogue of the reference's sparse-LU backend's role on
+— the dense analogue of the reference's sparse-LU backend's role on
 bound-constrained QPs (kktsolvers.jl:281-310)."""
 
 import functools

@@ -196,7 +196,7 @@ def test_proactive_lastmile_restores_f64_iteration_counts():
     # last-mile (lastmileProactive=50) enters the full-precision KKT
     # branch at 50x tolerance, so the f32 path matches the f64
     # trajectory's iteration count exactly instead of paying 1-2 wasted
-    # stall-detection iterations (round-1 VERDICT item 2).
+    # stall-detection iterations.
     import jax.numpy as jnp
 
     from conicip_tpu.models.generators import many_small_socs, mixed_rqs

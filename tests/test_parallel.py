@@ -137,7 +137,7 @@ def _tp_problem(n, cones, p=0, seed=1):
     ids=["pad", "eq", "soc", "rqs_eq", "wide_eq"],
 )
 def test_kktsolver_schur_tp_general_specs(cones, p):
-    # the sharded path must support EVERY cone spec (round-1 VERDICT item 4)
+    # the sharded path must support EVERY cone spec
     # and agree with the replicated production solver
     mesh = make_mesh((8,), ("tp",))
     n = 19
@@ -297,8 +297,7 @@ def test_solve_batch_eliminated_matches_single():
     Q, c, A, b, cones, G, d = batched_mixed_rq_eq(batch=6, n=40)
     # The eliminated path runs the whole batch through the p = 0 f32 tier;
     # near-tolerance stragglers escalate through ONE batched
-    # f64-assembled re-solve (never per-instance serialization —
-    # round-1 VERDICT item 6).
+    # f64-assembled re-solve (never per-instance serialization).
     bs = solve_batch(Q, c, A, b, cones, G, d, factor_dtype=jnp.float32,
                      optTol=1e-7)
     assert bs.statuses == ["Optimal"] * 6
@@ -401,8 +400,7 @@ def test_solve_batch_full_rank_G_degenerate():
 
 def test_batched_sdp_fasteig_certifies():
     # Batched SDP fast tier runs all S-cone decompositions in f32
-    # (fastEig=True auto — v5e's f64 eigh only reaches ~5e-7 anyway, at
-    # far higher latency); the fused full-f64 rescue tier is the escape
+    # (fastEig=True auto); the fused full-f64 rescue tier is the escape
     # hatch. Every instance must still certify 1e-6, matching the
     # full-precision-decomposition run's statuses.
     import jax.numpy as jnp
@@ -421,14 +419,13 @@ def test_batched_sdp_fasteig_certifies():
 
 
 def test_batched_sdp_fasteig_rescue_tier_certifies():
-    # The TPU production SDP rescue ladder: first the f64-KKT tier with
-    # f32 decompositions (fastEig=True — cheap on v5e, where emulated-f64
-    # eigh serializes), then the full-precision-decomposition final tier
+    # An SDP rescue ladder: first the f64-KKT tier with f32
+    # decompositions (fastEig=True), then the full-precision-decomposition
+    # final tier
     # backstopping instances whose 1e-6 certification needs the extra
     # decomposition digits (~1 in 6 on this family with fastEig alone).
-    # Exercise that exact ladder directly (it is backend-gated in
-    # solve_batch, so CPU CI would otherwise never compile it): every
-    # instance must certify 1e-6.
+    # Exercise that ladder directly (solve_batch does not build it by
+    # default): every instance must certify 1e-6.
     import jax.numpy as jnp
 
     from conicip_tpu.models.generators import batched_small_sdp
@@ -458,40 +455,3 @@ def test_batched_sdp_fasteig_rescue_tier_certifies():
                        np.maximum(np.asarray(st.duFeas),
                                   np.asarray(st.muFeas)))
     assert float(np.max(resid)) < 1e-6
-
-
-def test_solve_batch_sdp_refined_decompositions(monkeypatch):
-    # The batched S-cone tiers route every full-precision decomposition
-    # through the GEMM-dominant refined/unrolled kernels (ops/smalleig) —
-    # forced on here (CPU pretends to be the TPU eigh-form path) the
-    # batch must still certify to the same solutions as the stock path.
-    import conicip_tpu.cones.scaling as sc
-    import conicip_tpu.ops.smalleig as se
-    from conicip_tpu.models import batched_small_sdp
-
-    monkeypatch.setattr(sc, "_use_svd", lambda: False)
-    monkeypatch.setattr(se, "_on_tpu", lambda: True)
-    Q, c, A, b, cones = batched_small_sdp(batch=4, k=4)
-    ref = solve_batch(Q, c, A, b, cones, optTol=1e-7, refinedEig=False)
-    got = solve_batch(Q, c, A, b, cones, optTol=1e-7)  # refined default
-    assert ref.statuses == ["Optimal"] * 4
-    assert got.statuses == ["Optimal"] * 4
-    np.testing.assert_allclose(got.y, ref.y, atol=1e-6)
-
-
-def test_solve_batch_sdp_refined_f32_ladder(monkeypatch):
-    # Same forcing, but through the f32 fused escalation ladder (the
-    # production TPU configuration): fast f32 tier + refined rescue tiers.
-    import conicip_tpu.cones.scaling as sc
-    import conicip_tpu.ops.smalleig as se
-    import jax.numpy as jnp
-    from conicip_tpu.models import batched_small_sdp
-
-    monkeypatch.setattr(sc, "_use_svd", lambda: False)
-    monkeypatch.setattr(se, "_on_tpu", lambda: True)
-    Q, c, A, b, cones = batched_small_sdp(batch=4, k=4, seed=3)
-    bs = solve_batch(Q, c, A, b, cones, optTol=1e-6,
-                     factor_dtype=jnp.float32)
-    assert bs.statuses == ["Optimal"] * 4
-    res = np.maximum(bs.prFeas, np.maximum(bs.duFeas, bs.muFeas))
-    assert res.max() < 1e-6

@@ -3,8 +3,8 @@
 
 The single-host virtual mesh (``xla_force_host_platform_device_count``)
 never exercises the multi-*process* machinery: the coordination service,
-cross-process device enumeration, and DCN-path collectives (Gloo on CPU,
-standing in for the real DCN between TPU hosts). This script launches two
+cross-process device enumeration, and cross-host collectives (Gloo on CPU,
+standing in for the network between hosts). This script launches two
 worker processes, each with 4 virtual CPU devices, forms the 8-device
 global mesh, and runs a dp-sharded ``solve_batch`` plus a tp-sharded
 ``conic_ip`` across the process boundary.
